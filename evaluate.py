@@ -36,26 +36,23 @@ def main(argv=None):
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE")
     args = p.parse_args(argv)
 
-    from scrabblegan_tpu.utils.platform import apply_env_platform
-
-    apply_env_platform()
     import jax
 
-    from scrabblegan_tpu.config import load_config
-    from scrabblegan_tpu.eval import (
+    from scrabblegan.config import load_config
+    from scrabblegan.eval import (
         character_error_rate,
         compute_rfid,
         greedy_ctc_decode,
         recognizer_features,
     )
-    from scrabblegan_tpu.train.loop import Trainer
-    from scrabblegan_tpu.utils.cache import enable_compilation_cache
+    from scrabblegan.train.loop import Trainer
+    from scrabblegan.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
     overrides = dict(kv.split("=", 1) for kv in args.set)
     # workdirs are self-describing (Trainer writes config.json at the root);
     # an explicit --config wins, --set applies on top either way
-    from scrabblegan_tpu.config import discover_config
+    from scrabblegan.config import discover_config
 
     cfg_path = args.config or discover_config(args.workdir, max_up=0)
     if cfg_path and not args.config:
@@ -88,7 +85,7 @@ def main(argv=None):
     bsz = cfg.shared.batch_size
 
     np_rng = np.random.default_rng(cfg.seed + 42)
-    from scrabblegan_tpu.data.loaders import sample_fake_labels
+    from scrabblegan.data.loaders import sample_fake_labels
 
     # EMA states need standing statistics (Trainer.standing_stats docstring);
     # None for non-EMA states -> generate() serves the live stats

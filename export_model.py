@@ -27,14 +27,10 @@ def main(argv=None):
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE")
     args = p.parse_args(argv)
 
-    from scrabblegan_tpu.utils.platform import apply_env_platform
-
-    apply_env_platform()
-
-    from scrabblegan_tpu.config import discover_config, load_config
-    from scrabblegan_tpu.train.checkpoint import latest_generator_export, load_generator
-    from scrabblegan_tpu.train.export import export_generator
-    from scrabblegan_tpu.train.state import build_models
+    from scrabblegan.config import discover_config, load_config
+    from scrabblegan.train.checkpoint import latest_generator_export, load_generator
+    from scrabblegan.train.export import export_generator
+    from scrabblegan.train.state import build_models
 
     overrides = dict(kv.split("=", 1) for kv in args.set)
     # model dirs are self-describing (Trainer writes config.json next to every
@@ -49,7 +45,7 @@ def main(argv=None):
         cfg = replace(cfg, shared=replace(cfg.shared, z_source=args.z_source))
 
     export = latest_generator_export(args.model_dir) or args.model_dir
-    from scrabblegan_tpu.eval.gate import latest_good_export
+    from scrabblegan.eval.gate import latest_good_export
 
     good = latest_good_export(args.model_dir)
     if good and os.path.realpath(good) != os.path.realpath(export):

@@ -4,11 +4,11 @@
 // list indexing + np.array construction + normalize (reference
 // src/bigacgan/data_utils.py:62-84; SURVEY.md §3.1 "the secondary hot path").
 // This library replaces it with a multithreaded gather + uint8->[-1,1] float
-// conversion into a caller-owned buffer, so the host keeps the TPU fed while
+// conversion into a caller-owned buffer, so the host keeps the GPU fed while
 // the step runs.
 //
 // Build: make -C native   (produces libbatcher.so)
-// ABI: plain C, consumed via ctypes from scrabblegan_tpu/data/native.py.
+// ABI: plain C, consumed via ctypes from scrabblegan/data/native.py.
 
 #include <atomic>
 #include <cstdint>

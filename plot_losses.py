@@ -15,7 +15,7 @@ def main(argv=None):
     p.add_argument("--no-per-batch", action="store_true")
     args = p.parse_args(argv)
 
-    from scrabblegan_tpu.utils.plotting import plot_losses
+    from scrabblegan.utils.plotting import plot_losses
 
     outputs = plot_losses(args.base_path, info_per_batch=not args.no_per_batch,
                           gradient_balance=args.gradient_balance)

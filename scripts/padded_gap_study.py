@@ -44,23 +44,19 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from scrabblegan_tpu.utils.platform import apply_env_platform
-
-apply_env_platform()
-
 import jax
 import jax.numpy as jnp
 
-from scrabblegan_tpu.config import apply_overrides, discover_config, load_config
-from scrabblegan_tpu.data.loaders import (
+from scrabblegan.config import apply_overrides, discover_config, load_config
+from scrabblegan.data.loaders import (
     BucketedDataset,
     load_random_word_list,
     load_style_images,
     sample_fake_labels,
 )
-from scrabblegan_tpu.ops.ctc import ctc_loss
-from scrabblegan_tpu.train import checkpoint as ckpt_lib
-from scrabblegan_tpu.train.state import build_models, create_train_state
+from scrabblegan.ops.ctc import ctc_loss
+from scrabblegan.train import checkpoint as ckpt_lib
+from scrabblegan.train.state import build_models, create_train_state
 
 
 def feature_mask(bsz: int, w_img: int, lengths: np.ndarray) -> jnp.ndarray:
@@ -161,7 +157,7 @@ def main(argv=None):
     jd = jax.jit(lambda v, x, m: D.apply(v, x, False, width_mask=m))
     jw = jax.jit(lambda v, x, m: W.apply(v, x, False, width_mask=m))
     jr = jax.jit(lambda v, x: R.apply(v, x, False))
-    # `train` must be trace-static (flax SN/BN branch on it in Python)
+    # `train` must be trace-static (SN/BN branch on it in Python)
     jg_p = jax.jit(lambda v, lab, sty, ln, train: G_p.apply(
         v, lab, style_imgs=sty, lengths=ln, train=train,
         mutable=["batch_stats"]), static_argnums=(4,))

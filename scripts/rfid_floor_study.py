@@ -37,7 +37,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def load_bucket(read_dir: str, bucket: int) -> np.ndarray:
-    from scrabblegan_tpu.data.images import read_grayscale
+    from scrabblegan.data.images import read_grayscale
 
     d = os.path.join(read_dir, str(bucket))
     imgs = []
@@ -58,13 +58,10 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
 
-    from scrabblegan_tpu.utils.platform import apply_env_platform
-
-    apply_env_platform()
-    from scrabblegan_tpu.config import Config
-    from scrabblegan_tpu.eval import compute_rfid, random_features, recognizer_features
-    from scrabblegan_tpu.train.checkpoint import load_recognizer
-    from scrabblegan_tpu.train.state import build_models
+    from scrabblegan.config import Config
+    from scrabblegan.eval import compute_rfid, random_features, recognizer_features
+    from scrabblegan.train.checkpoint import load_recognizer
+    from scrabblegan.train.state import build_models
 
     rec = build_models(Config()).recognizer
     rec_vars = load_recognizer(args.recognizer)

@@ -10,9 +10,9 @@ import pytest
 
 pytestmark = pytest.mark.slow  # jits multi-network steps / fresh model shapes
 
-from scrabblegan_tpu.config import Config, OptimizerConfig, ParallelConfig, SharedSpecs
-from scrabblegan_tpu.train.state import build_models, create_train_state
-from scrabblegan_tpu.train.step import make_train_step
+from scrabblegan.config import Config, OptimizerConfig, ParallelConfig, SharedSpecs
+from scrabblegan.train.state import build_models, create_train_state
+from scrabblegan.train.step import make_train_step
 
 B = 4
 

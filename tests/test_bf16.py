@@ -10,9 +10,9 @@ import pytest
 
 pytestmark = pytest.mark.slow  # jits multi-network steps / fresh model shapes
 
-from scrabblegan_tpu.config import Config, OptimizerConfig, ParallelConfig, SharedSpecs
-from scrabblegan_tpu.train.state import build_models, create_train_state
-from scrabblegan_tpu.train.step import make_train_step
+from scrabblegan.config import Config, OptimizerConfig, ParallelConfig, SharedSpecs
+from scrabblegan.train.state import build_models, create_train_state
+from scrabblegan.train.step import make_train_step
 
 B = 4
 
@@ -140,7 +140,7 @@ class TestDCGANTrunkBf16:
     under a bf16 trunk, mirroring _DownTrunk's rule."""
 
     def test_close_to_f32_and_head_f32(self):
-        from scrabblegan_tpu.models import DCGANDiscriminator
+        from scrabblegan.models import DCGANDiscriminator
 
         rng = np.random.default_rng(2)
         imgs = rng.uniform(-1, 1, (B, 32, 32, 1)).astype(np.float32)

@@ -7,7 +7,7 @@ and the entry points auto-load it, so padded/EMA runs restore with no manual
 import json
 import os
 
-from scrabblegan_tpu.config import (
+from scrabblegan.config import (
     Config,
     apply_overrides,
     config_to_dict,
@@ -102,8 +102,8 @@ class TestDtypeValidation:
     def test_bad_trunk_dtype_rejected(self):
         import pytest
 
-        from scrabblegan_tpu.config import apply_overrides
-        from scrabblegan_tpu.train.state import build_models
+        from scrabblegan.config import apply_overrides
+        from scrabblegan.train.state import build_models
 
         for bad in ("bf16", "float16", "half"):
             cfg = apply_overrides(Config(), {"shared.trunk_dtype": bad})
@@ -113,16 +113,16 @@ class TestDtypeValidation:
     def test_bad_dtype_rejected(self):
         import pytest
 
-        from scrabblegan_tpu.config import apply_overrides
-        from scrabblegan_tpu.train.state import build_models
+        from scrabblegan.config import apply_overrides
+        from scrabblegan.train.state import build_models
 
         cfg = apply_overrides(Config(), {"shared.dtype": "fp32"})
         with pytest.raises(ValueError, match="shared.dtype"):
             build_models(cfg)
 
     def test_good_values_accepted(self):
-        from scrabblegan_tpu.config import apply_overrides
-        from scrabblegan_tpu.train.state import build_models
+        from scrabblegan.config import apply_overrides
+        from scrabblegan.train.state import build_models
 
         for good in ("", "float32", "bfloat16"):
             cfg = apply_overrides(Config(), {"shared.trunk_dtype": good})

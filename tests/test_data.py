@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from scrabblegan_tpu.config import CHAR_VECTOR
-from scrabblegan_tpu.data import (
+from scrabblegan.config import CHAR_VECTOR
+from scrabblegan.data import (
     BucketedDataset,
     convert_to_gan_format,
     decode_label,
@@ -16,9 +16,9 @@ from scrabblegan_tpu.data import (
     load_style_images,
     make_synthetic_dataset,
 )
-from scrabblegan_tpu.data.iam import parse_iam_words_txt
-from scrabblegan_tpu.data.images import read_grayscale, write_grayscale
-from scrabblegan_tpu.data.loaders import sample_fake_labels
+from scrabblegan.data.iam import parse_iam_words_txt
+from scrabblegan.data.images import read_grayscale, write_grayscale
+from scrabblegan.data.loaders import sample_fake_labels
 
 
 @pytest.fixture(scope="module")
@@ -66,7 +66,7 @@ class TestScriptStyle:
         assert img.min() < 80 and img.max() > 200  # real ink on white
 
     def test_same_word_varies_but_class_is_stable(self):
-        from scrabblegan_tpu.data.synthetic import _draw_word_script
+        from scrabblegan.data.synthetic import _draw_word_script
 
         rng = np.random.default_rng(0)
         a = _draw_word_script("abc", rng)
@@ -87,7 +87,7 @@ class TestLengthSkew:
     """Population-weighted synthetic data (the bucketed-instability skew cell)."""
 
     def test_bucket_populations(self):
-        from scrabblegan_tpu.data.synthetic import bucket_populations
+        from scrabblegan.data.synthetic import bucket_populations
 
         assert bucket_populations(100, 10, None) == (100,) * 10
         pops = bucket_populations(100, 10, "iam")
@@ -101,7 +101,7 @@ class TestLengthSkew:
             bucket_populations(100, 10, [0.5])  # too few weights
 
     def test_skewed_dataset_drives_loader_weights(self, tmp_path):
-        from scrabblegan_tpu.data.synthetic import bucket_populations
+        from scrabblegan.data.synthetic import bucket_populations
 
         read_dir, _, _ = make_synthetic_dataset(
             str(tmp_path), samples_per_bucket=20, bucket_size=10,
@@ -263,7 +263,7 @@ class TestConverter:
 
 class TestRimesConverter:
     def test_groundtruth_parsing(self, tmp_path):
-        from scrabblegan_tpu.data.iam import parse_rimes_groundtruth
+        from scrabblegan.data.iam import parse_rimes_groundtruth
 
         gt = tmp_path / "ground_truth.txt"
         gt.write_text(
@@ -280,7 +280,7 @@ class TestRimesConverter:
         """Fabricated mini-RIMES tree -> bucketed GAN-Reading output; the
         second concrete dataset handler the dinterface layer was designed for
         (reference README:58; the reference never shipped it)."""
-        from scrabblegan_tpu.data.iam import DATASET_HANDLERS
+        from scrabblegan.data.iam import DATASET_HANDLERS
 
         raw = tmp_path / "rimes"
         (raw / "images").mkdir(parents=True)

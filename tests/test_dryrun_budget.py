@@ -1,6 +1,6 @@
 """dryrun_multichip budget machinery (__graft_entry__.py, VERDICT r4 item 1):
 the fsdp leg always runs; later legs start only when the remaining budget
-covers an adaptive estimate scaled from the measured fsdp leg; the Orbax leg
+covers an adaptive estimate scaled from the measured fsdp leg; the checkpoint leg
 degrades first; skips print a note instead of dying to an external timeout."""
 
 import os
@@ -15,8 +15,8 @@ def _run(monkeypatch, capsys, budget, leg_secs):
 
     calls = []
 
-    def fake_leg(n, mode, orbax_leg=True):
-        calls.append((mode, orbax_leg))
+    def fake_leg(n, mode, ckpt_leg=True):
+        calls.append((mode, ckpt_leg))
         time.sleep(leg_secs)
 
     monkeypatch.setattr(g, "_dryrun_one", fake_leg)
@@ -39,10 +39,10 @@ class TestDryrunBudget:
         assert "tests/test_tp.py" in out  # points at the suite coverage
 
     def test_middle_budget_defers_only_orbax(self, monkeypatch, capsys):
-        # enough for ~3.5 legs: all three modes run, Orbax leg deferred
+        # enough for ~3.5 legs: all three modes run, checkpoint leg deferred
         calls, out = _run(monkeypatch, capsys, budget=0.20, leg_secs=0.05)
         assert calls == [("fsdp", True), ("tp", True), ("fsdp+tp", False)]
-        assert "Orbax leg deferred" in out
+        assert "checkpoint leg deferred" in out
 
     def test_small_device_count_is_fsdp_only(self, monkeypatch, capsys):
         import __graft_entry__ as g
@@ -50,6 +50,6 @@ class TestDryrunBudget:
         calls = []
         monkeypatch.setattr(
             g, "_dryrun_one",
-            lambda n, mode, orbax_leg=True: calls.append(mode))
+            lambda n, mode, ckpt_leg=True: calls.append(mode))
         g.dryrun_multichip(2)
         assert calls == ["fsdp"]

@@ -13,9 +13,9 @@ import pytest
 
 pytestmark = pytest.mark.slow  # jits multi-network steps
 
-from scrabblegan_tpu.config import Config, OptimizerConfig, ParallelConfig, SharedSpecs
-from scrabblegan_tpu.train.state import build_models, create_train_state
-from scrabblegan_tpu.train.step import make_train_step
+from scrabblegan.config import Config, OptimizerConfig, ParallelConfig, SharedSpecs
+from scrabblegan.train.state import build_models, create_train_state
+from scrabblegan.train.step import make_train_step
 
 B = 8
 LEN = 2
@@ -104,8 +104,8 @@ def test_ema_frozen_on_g_skip_steps():
 def test_export_and_grid_serve_ema(tmp_path, ema_setup):
     """Trainer.generate and the per-epoch export must read g_ema, not the
     live params, when EMA is on."""
-    from scrabblegan_tpu.train import checkpoint as ckpt_lib
-    from scrabblegan_tpu.train.loop import Trainer
+    from scrabblegan.train import checkpoint as ckpt_lib
+    from scrabblegan.train.loop import Trainer
 
     cfg, models, state, step = ema_setup
     s1, _ = step(state, _batch(1), jax.random.PRNGKey(1))
@@ -135,9 +135,9 @@ class TestStandingStats:
     def trained_ema(self, tmp_path_factory):
         """A real (tiny) EMA run on the synthetic fixture — standing stats
         need the Trainer's data-driven batch maker."""
-        from scrabblegan_tpu.config import IOConfig
-        from scrabblegan_tpu.data.synthetic import make_synthetic_dataset
-        from scrabblegan_tpu.train.loop import Trainer
+        from scrabblegan.config import IOConfig
+        from scrabblegan.data.synthetic import make_synthetic_dataset
+        from scrabblegan.train.loop import Trainer
 
         cfg = Config(
             optimizer=OptimizerConfig(g_ema_decay=DECAY,
@@ -166,7 +166,7 @@ class TestStandingStats:
     def test_export_carries_standing_stats(self, trained_ema):
         """The per-epoch export's batch_stats must be the standing-stats
         refresh, not the live running stats."""
-        from scrabblegan_tpu.train import checkpoint as ckpt_lib
+        from scrabblegan.train import checkpoint as ckpt_lib
 
         trainer, state = trained_ema
         export = ckpt_lib.load_generator(

@@ -6,15 +6,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scrabblegan_tpu.eval import (
+from scrabblegan.eval import (
     character_error_rate,
     compute_rfid,
     frechet_distance,
     greedy_ctc_decode,
     recognizer_features,
 )
-from scrabblegan_tpu.eval.decode import levenshtein
-from scrabblegan_tpu.models import Recognizer
+from scrabblegan.eval.decode import levenshtein
+from scrabblegan.models import Recognizer
 
 
 class TestFrechet:
@@ -99,7 +99,7 @@ class TestRandomFeatures:
     run-independent second Fréchet axis next to the self-referential rFID."""
 
     def test_deterministic_and_shape(self):
-        from scrabblegan_tpu.eval import random_features
+        from scrabblegan.eval import random_features
 
         imgs = np.random.default_rng(0).uniform(
             -1, 1, (8, 32, 80, 1)).astype(np.float32)
@@ -111,7 +111,7 @@ class TestRandomFeatures:
         assert not np.allclose(a, c)
 
     def test_separates_distributions(self):
-        from scrabblegan_tpu.eval import random_features
+        from scrabblegan.eval import random_features
 
         rng = np.random.default_rng(0)
         ex = random_features()
@@ -123,7 +123,7 @@ class TestRandomFeatures:
         assert far > 5 * near  # same dist ~ sampling floor; shifted >> it
 
     def test_width_agnostic(self):
-        from scrabblegan_tpu.eval import random_features
+        from scrabblegan.eval import random_features
 
         ex = random_features()
         w80 = ex(np.zeros((2, 32, 80, 1), np.float32))
@@ -150,14 +150,14 @@ class TestExportGate:
         return imgs
 
     def test_real_vs_real_is_ok(self, word_images):
-        from scrabblegan_tpu.eval import score_export
+        from scrabblegan.eval import score_export
 
         res = score_export(word_images[:64], word_images[64:192])
         assert res["flag"] == "ok"
         assert res["excess"] < res["threshold"]
 
     def test_garbage_is_suspect(self, word_images):
-        from scrabblegan_tpu.eval import score_export
+        from scrabblegan.eval import score_export
 
         rng = np.random.default_rng(8)
         garbage = rng.uniform(-1, 1, (64, 32, 80, 1)).astype(np.float32)
@@ -166,7 +166,7 @@ class TestExportGate:
         assert res["excess"] > res["threshold"]
 
     def test_annotate_and_latest_good(self, tmp_path):
-        from scrabblegan_tpu.eval import annotate_export, latest_good_export
+        from scrabblegan.eval import annotate_export, latest_good_export
 
         model_dir = str(tmp_path)
         gen_root = tmp_path / "generator"
@@ -187,6 +187,6 @@ class TestExportGate:
             assert json.load(f)["flag"] == "suspect"
 
     def test_no_gate_no_link(self, tmp_path):
-        from scrabblegan_tpu.eval import latest_good_export
+        from scrabblegan.eval import latest_good_export
 
         assert latest_good_export(str(tmp_path)) is None

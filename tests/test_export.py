@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scrabblegan_tpu.models import Generator
-from scrabblegan_tpu.train.export import export_generator, load_exported_generator
+from scrabblegan.models import Generator
+from scrabblegan.train.export import export_generator, load_exported_generator
 
 B, LEN = 2, 3
 

@@ -1,4 +1,4 @@
-"""MXU FLOP accounting tests: known closed-form cases + model-level sanity."""
+"""Matmul/conv FLOP accounting tests: known closed-form cases + model-level sanity."""
 
 import dataclasses
 
@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from scrabblegan_tpu.utils.flops import matmul_flops
+from scrabblegan.utils.flops import matmul_flops
 
 
 class TestKnownCounts:
@@ -53,8 +53,8 @@ class TestKnownCounts:
 
 class TestModelCounts:
     def test_generator_flops_scale_with_length(self):
-        from scrabblegan_tpu.config import Config, SharedSpecs
-        from scrabblegan_tpu.train.state import build_models
+        from scrabblegan.config import Config, SharedSpecs
+        from scrabblegan.train.state import build_models
 
         cfg = Config(shared=dataclasses.replace(
             SharedSpecs(), z_source="noise", use_pallas_attention=False))
@@ -89,7 +89,7 @@ class TestFlopsCache:
         return x @ x
 
     def test_hit_skips_retrace(self, tmp_path, monkeypatch):
-        from scrabblegan_tpu.utils import flops as F
+        from scrabblegan.utils import flops as F
 
         path = str(tmp_path / "cache.json")
         x = jnp.zeros((8, 8))
@@ -102,7 +102,7 @@ class TestFlopsCache:
         assert b == a and not calls  # served from disk, no retrace
 
     def test_salt_and_shape_invalidate(self, tmp_path):
-        from scrabblegan_tpu.utils import flops as F
+        from scrabblegan.utils import flops as F
 
         path = str(tmp_path / "cache.json")
         x = jnp.zeros((8, 8))
@@ -116,6 +116,6 @@ class TestFlopsCache:
         assert len(json.load(open(path))) == n1 + 2
 
     def test_no_cache_path_passthrough(self):
-        from scrabblegan_tpu.utils import flops as F
+        from scrabblegan.utils import flops as F
 
         assert F.matmul_flops_cached(self._fn, jnp.zeros((2, 2))) == 16

@@ -13,10 +13,10 @@ import pytest
 
 pytestmark = pytest.mark.slow  # jits 4-network steps
 
-from scrabblegan_tpu.config import Config, ParallelConfig, SharedSpecs
-from scrabblegan_tpu.parallel.fsdp import leaf_sharding, state_shardings
-from scrabblegan_tpu.parallel.mesh import make_mesh, make_parallel_train_step, shard_batch
-from scrabblegan_tpu.train.state import build_models, create_train_state
+from scrabblegan.config import Config, ParallelConfig, SharedSpecs
+from scrabblegan.parallel.fsdp import leaf_sharding, state_shardings
+from scrabblegan.parallel.mesh import make_mesh, make_parallel_train_step, shard_batch
+from scrabblegan.train.state import build_models, create_train_state
 
 B = 8
 LEN = 2
@@ -96,7 +96,7 @@ class TestEmaSharding:
         """An EMA-enabled state (optimizer.g_ema_decay>0) adds a params-shaped
         g_ema tree; the per-leaf FSDP rule must give each EMA leaf exactly the
         sharding of its parameter twin (eval_shape only — no step compile)."""
-        from scrabblegan_tpu.config import OptimizerConfig
+        from scrabblegan.config import OptimizerConfig
 
         cfg = Config(
             optimizer=OptimizerConfig(g_ema_decay=0.999),

@@ -16,18 +16,18 @@ import pytest
 
 pytestmark = pytest.mark.slow  # jits 4-network steps
 
-from scrabblegan_tpu.config import Config, ParallelConfig, SharedSpecs
-from scrabblegan_tpu.parallel.fsdp_tp import (
+from scrabblegan.config import Config, ParallelConfig, SharedSpecs
+from scrabblegan.parallel.fsdp_tp import (
     fsdp_tp_state_shardings,
     leaf_fsdp_tp_sharding,
 )
-from scrabblegan_tpu.parallel.mesh import (
+from scrabblegan.parallel.mesh import (
     make_mesh,
     make_parallel_train_step,
     shard_batch,
     state_sharding_for,
 )
-from scrabblegan_tpu.train.state import build_models, create_train_state
+from scrabblegan.train.state import build_models, create_train_state
 
 B = 8
 LEN = 2

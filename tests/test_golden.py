@@ -21,8 +21,8 @@ the optax path or the in-test DP drifts, the literals catch it.
 import numpy as np
 import pytest
 
-from scrabblegan_tpu.ops.ctc import ctc_loss
-from scrabblegan_tpu.ops.losses import hinge, not_saturating
+from scrabblegan.ops.ctc import ctc_loss
+from scrabblegan.ops.losses import hinge, not_saturating
 
 
 # --------------------------------------------------------------------- oracle

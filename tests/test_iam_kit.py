@@ -20,7 +20,7 @@ class TestIamCampaignConfig:
         """Fast sanity on the checked-in JSON: reference schedule constants
         (scrabble_gan.gin:17-18,36) + the quality-recommended regime
         (docs/QUALITY.md)."""
-        from scrabblegan_tpu.config import load_config
+        from scrabblegan.config import load_config
 
         cfg = load_config(CONFIG)
         assert cfg.io.buf_size == 80377  # 5,024 steps/epoch at batch 16

@@ -8,14 +8,14 @@ import dataclasses
 import numpy as np
 import pytest
 
-from scrabblegan_tpu.config import (
+from scrabblegan.config import (
     Config,
     IOConfig,
     OptimizerConfig,
     ParallelConfig,
     SharedSpecs,
 )
-from scrabblegan_tpu.data.synthetic import make_synthetic_dataset
+from scrabblegan.data.synthetic import make_synthetic_dataset
 
 B = 8
 L_MAX = 3
@@ -41,7 +41,7 @@ def data(tmp_path_factory):
 
 
 def make_trainer(cfg, data, tmp_path_factory):
-    from scrabblegan_tpu.train.loop import Trainer
+    from scrabblegan.train.loop import Trainer
 
     read_dir, words_file, style_dir = data
     t = Trainer(cfg, workdir=str(tmp_path_factory.mktemp("mixwd")),
@@ -52,7 +52,7 @@ def make_trainer(cfg, data, tmp_path_factory):
 
 class TestMixedAssembly:
     def test_config_validation(self):
-        from scrabblegan_tpu.train.loop import Trainer
+        from scrabblegan.train.loop import Trainer
 
         with pytest.raises(ValueError, match="padded"):
             Trainer(mixed_cfg(shape_mode="bucketed"), workdir="/tmp/x",

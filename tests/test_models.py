@@ -13,7 +13,7 @@ import pytest
 
 pytestmark = pytest.mark.slow  # jits multi-network steps / fresh model shapes
 
-from scrabblegan_tpu.models import (
+from scrabblegan.models import (
     BiLSTMRecognizer,
     DCGANDiscriminator,
     Discriminator,
@@ -25,7 +25,7 @@ from scrabblegan_tpu.models import (
     disc_channels,
     gen_channels,
 )
-from scrabblegan_tpu.models.style import StyleExtractor
+from scrabblegan.models.style import StyleExtractor
 
 B = 2
 VOCAB = 52

@@ -4,7 +4,7 @@ the numpy fallback, and exercises the BucketedDataset integration."""
 import numpy as np
 import pytest
 
-from scrabblegan_tpu.data import native
+from scrabblegan.data import native
 
 
 @pytest.fixture(scope="module")
@@ -43,7 +43,7 @@ class TestNativeBatcher:
         np.testing.assert_array_equal(out, labels[idx])
 
     def test_dataset_native_vs_numpy(self, lib, tmp_path):
-        from scrabblegan_tpu.data import BucketedDataset, make_synthetic_dataset
+        from scrabblegan.data import BucketedDataset, make_synthetic_dataset
 
         read_dir, _, _ = make_synthetic_dataset(str(tmp_path), samples_per_bucket=4,
                                                 bucket_size=3)

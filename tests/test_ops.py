@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scrabblegan_tpu.ops import (
+from scrabblegan.ops import (
     ConditionalBatchNorm,
     FilterBank,
     NonLocalBlock,
@@ -61,7 +61,7 @@ class TestBalance:
         np.testing.assert_allclose(gb, [2.0, 10.0])
 
     def test_image_gradient_balance(self):
-        from scrabblegan_tpu.ops.balance import balance_image_gradients
+        from scrabblegan.ops.balance import balance_image_gradients
 
         adv = jnp.array([0.0, 4.0])   # std 2
         ctc = jnp.array([1.0, 3.0])   # std 1
@@ -72,7 +72,7 @@ class TestBalance:
     def test_balanced_fanout_backward(self):
         """The fanout is identity forward; backward combines the two branch
         cotangents as adv + alpha*(std(adv)/std(ctc))*ctc."""
-        from scrabblegan_tpu.ops.balance import balanced_fanout
+        from scrabblegan.ops.balance import balanced_fanout
 
         x = jnp.arange(6, dtype=jnp.float32).reshape(2, 3)
         c_adv = jnp.array([[1.0, 0.0, 2.0], [0.0, 1.0, 3.0]])
@@ -133,7 +133,7 @@ class TestFilterBank:
         np.testing.assert_allclose(out[1, 0], bank[4])
 
     def test_contract_matches_gather_einsum(self, rng):
-        """The fused one-hot MXU form must equal gather + einsum (the TF
+        """The fused one-hot matmul form must equal gather + einsum (the TF
         reference semantics, net_architecture.py:267-268)."""
         fb = FilterBank(vocab_size=7, filter_dim=(4, 8))
         ids = jnp.array([[0, 2, 6], [4, 4, 1]])
@@ -206,12 +206,12 @@ class TestAttention:
         y, _ = blk.apply(v, x, True, mutable=["batch_stats"])
         assert y.shape == x.shape
 
-    @pytest.mark.parametrize("dataflow", ["nhwc", "nhwc1", "packed", "fused"])
+    @pytest.mark.parametrize("dataflow", ["nhwc", "nhwc1"])
     def test_packed_path_matches_nhwc(self, rng, dataflow):
-        """Every use_pallas dataflow — 'nhwc' (default), 'packed' (identity-
-        extracted SN kernels, packed einsum projections, packed pooling), and
-        'fused' (whole-block kernel) — must share the pure-XLA path's param
-        tree and compute the same function AND gradients."""
+        """Every use_pallas dataflow — 'nhwc' (three 1x1 convs) and 'nhwc1'
+        (one projection matmul on identity-extracted SN kernels) — must share
+        the pure-XLA path's param tree and compute the same function AND
+        gradients."""
         x = jax.random.normal(rng, (2, 8, 16, 64))
         ref_blk = NonLocalBlock(use_sn=True, use_pallas=False)
         pkd_blk = NonLocalBlock(use_sn=True, use_pallas=True, dataflow=dataflow)
@@ -250,7 +250,7 @@ class TestAttention:
 
 class TestSpectralNorm:
     def test_persistent_u_updates_in_train_only(self, rng):
-        from scrabblegan_tpu.ops.layers import SNDense
+        from scrabblegan.ops.layers import SNDense
 
         layer = SNDense(8, use_sn=True)
         x = jnp.ones((2, 16))
@@ -278,7 +278,7 @@ class TestSubpixelConvTranspose:
 
     @pytest.mark.parametrize("strides,ksize", CASES)
     def test_matches_dilated_lowering(self, rng, strides, ksize):
-        from scrabblegan_tpu.ops.layers import SNConvTranspose
+        from scrabblegan.ops.layers import SNConvTranspose
 
         x = jax.random.normal(rng, (2, 4, 6, 16))
         ref = SNConvTranspose(8, ksize, strides=strides, use_sn=False, lowering="dilated")
@@ -290,7 +290,7 @@ class TestSubpixelConvTranspose:
         np.testing.assert_allclose(y_sub, y_ref, atol=2e-5, rtol=1e-5)
 
     def test_gradients_match(self, rng):
-        from scrabblegan_tpu.ops.layers import SNConvTranspose
+        from scrabblegan.ops.layers import SNConvTranspose
 
         x = jax.random.normal(rng, (2, 4, 6, 16))
         v = SNConvTranspose(8, (3, 3), strides=(2, 2), use_sn=False,
@@ -310,7 +310,7 @@ class TestSubpixelConvTranspose:
         )
 
     def test_spectral_norm_state_shared(self, rng):
-        from scrabblegan_tpu.ops.layers import SNConvTranspose
+        from scrabblegan.ops.layers import SNConvTranspose
 
         x = jax.random.normal(rng, (2, 4, 6, 16))
         v_ref = SNConvTranspose(8, (3, 3), use_sn=True, lowering="dilated").init(rng, x, True)

@@ -13,7 +13,7 @@ import numpy as np
 import optax
 import pytest
 
-from scrabblegan_tpu.train.optim import ScaleByLeanAdamState, lean_adam
+from scrabblegan.train.optim import ScaleByLeanAdamState, lean_adam
 
 
 def _tree(seed=0):
@@ -93,8 +93,8 @@ def test_bf16_moments_dtype_and_tolerance():
 def test_make_optimizers_lean_wiring():
     """config plumbing: adam_impl='lean' + moment_dtype reach all four nets
     (R keeps rmsprop when asked); unknown impl raises."""
-    from scrabblegan_tpu.config import Config, OptimizerConfig
-    from scrabblegan_tpu.train.state import make_optimizers
+    from scrabblegan.config import Config, OptimizerConfig
+    from scrabblegan.train.state import make_optimizers
 
     cfg = Config(optimizer=OptimizerConfig(adam_impl="lean",
                                            moment_dtype="bfloat16"))
@@ -116,10 +116,10 @@ def test_lean_step_parity_full():
     """The real train step under adam_impl='lean' (f32, b1=0) produces the
     same post-step parameters as stock optax — the mu elision is exact math,
     end to end through all four networks."""
-    from scrabblegan_tpu.config import (Config, OptimizerConfig,
+    from scrabblegan.config import (Config, OptimizerConfig,
                                         ParallelConfig, SharedSpecs)
-    from scrabblegan_tpu.train.state import build_models, create_train_state
-    from scrabblegan_tpu.train.step import make_train_step
+    from scrabblegan.train.state import build_models, create_train_state
+    from scrabblegan.train.step import make_train_step
 
     B, LEN = 8, 2
     rng = np.random.default_rng(0)
@@ -153,8 +153,8 @@ def test_lean_step_parity_full():
 
 def test_lean_with_schedule():
     """lr schedules chain through the lean transform like through optax.adam."""
-    from scrabblegan_tpu.config import Config, OptimizerConfig
-    from scrabblegan_tpu.train.state import make_optimizers
+    from scrabblegan.config import Config, OptimizerConfig
+    from scrabblegan.train.state import make_optimizers
 
     params = _tree()
     base = dict(adam_impl="lean", lr_schedule="cosine", decay_steps=100)

@@ -23,8 +23,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scrabblegan_tpu.config import Config, IOConfig, SharedSpecs
-from scrabblegan_tpu.train.state import build_models, create_train_state
+from scrabblegan.config import Config, IOConfig, SharedSpecs
+from scrabblegan.train.state import build_models, create_train_state
 
 B = 4
 L_MAX = 3

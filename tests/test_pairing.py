@@ -16,8 +16,8 @@ import dataclasses
 import numpy as np
 import pytest
 
-from scrabblegan_tpu.config import Config, IOConfig, ParallelConfig, SharedSpecs
-from scrabblegan_tpu.data.synthetic import make_synthetic_dataset
+from scrabblegan.config import Config, IOConfig, ParallelConfig, SharedSpecs
+from scrabblegan.data.synthetic import make_synthetic_dataset
 
 B = 16
 L_MAX = 5
@@ -32,7 +32,7 @@ def data(tmp_path_factory):
 
 
 def _trainer(data, tmp_path_factory, **parallel_kw):
-    from scrabblegan_tpu.train.loop import Trainer
+    from scrabblegan.train.loop import Trainer
 
     read_dir, words_file, style_dir = data
     cfg = Config(

@@ -10,10 +10,10 @@ import dataclasses
 import numpy as np
 import pytest
 
-from scrabblegan_tpu.config import (
+from scrabblegan.config import (
     Config, IOConfig, ParallelConfig, SharedSpecs, load_config,
 )
-from scrabblegan_tpu.data.synthetic import make_synthetic_dataset
+from scrabblegan.data.synthetic import make_synthetic_dataset
 
 
 @pytest.fixture(scope="module")
@@ -23,7 +23,7 @@ def data(tmp_path_factory):
 
 
 def _trainer(cfg, tmp_path_factory, data):
-    from scrabblegan_tpu.train.loop import Trainer
+    from scrabblegan.train.loop import Trainer
 
     read_dir, words_file, style_dir = data
     t = Trainer(cfg, workdir=str(tmp_path_factory.mktemp("seqlen_run")),

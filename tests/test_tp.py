@@ -14,14 +14,14 @@ import pytest
 
 pytestmark = pytest.mark.slow  # jits 4-network steps
 
-from scrabblegan_tpu.config import Config, ParallelConfig, SharedSpecs
-from scrabblegan_tpu.parallel.tp import leaf_tp_sharding, tp_state_shardings
-from scrabblegan_tpu.parallel.mesh import (
+from scrabblegan.config import Config, ParallelConfig, SharedSpecs
+from scrabblegan.parallel.tp import leaf_tp_sharding, tp_state_shardings
+from scrabblegan.parallel.mesh import (
     make_mesh,
     make_parallel_train_step,
     shard_batch,
 )
-from scrabblegan_tpu.train.state import build_models, create_train_state
+from scrabblegan.train.state import build_models, create_train_state
 
 B = 8
 LEN = 2

@@ -11,10 +11,10 @@ import pytest
 
 pytestmark = pytest.mark.slow  # jits multi-network steps / fresh model shapes
 
-from scrabblegan_tpu.config import Config, OptimizerConfig, ParallelConfig, SharedSpecs
-from scrabblegan_tpu.parallel.mesh import make_mesh, make_parallel_train_step
-from scrabblegan_tpu.train.state import build_models, create_train_state
-from scrabblegan_tpu.train.step import METRIC_NAMES, make_train_step
+from scrabblegan.config import Config, OptimizerConfig, ParallelConfig, SharedSpecs
+from scrabblegan.parallel.mesh import make_mesh, make_parallel_train_step
+from scrabblegan.train.state import build_models, create_train_state
+from scrabblegan.train.step import METRIC_NAMES, make_train_step
 
 B = 8
 LEN = 2
@@ -227,7 +227,7 @@ class TestParallel:
         import subprocess
         import sys
 
-        cmd = [sys.executable, "-m", "scrabblegan_tpu.parallel.selftest", "8"]
+        cmd = [sys.executable, "-m", "scrabblegan.parallel.selftest", "8"]
         env = dict(os.environ)
         env.pop("XLA_FLAGS", None)  # selftest sets its own device count
         for attempt in range(2):

@@ -1,6 +1,6 @@
 """Trainer-level multi-device drive (VERDICT r3 item 6): the dryrun and the
 parallel/ tests cover the bare step; this drives `Trainer.train` itself on the
-virtual 8-CPU mesh under the composed fsdp+tp layout, INCLUDING an Orbax save
+virtual 8-CPU mesh under the composed fsdp+tp layout, INCLUDING a checkpoint save
 of the SHARDED train state and a restore-on-start into a fresh Trainer —
 resharding on restore is the classic multi-chip failure. A second restore into
 a plain replicated-DP Trainer pins cross-layout resharding (checkpoint written
@@ -15,8 +15,8 @@ import pytest
 
 pytestmark = pytest.mark.slow  # jits the 4-network fsdp+tp step
 
-from scrabblegan_tpu.config import Config, IOConfig, ParallelConfig, SharedSpecs
-from scrabblegan_tpu.data.synthetic import make_synthetic_dataset
+from scrabblegan.config import Config, IOConfig, ParallelConfig, SharedSpecs
+from scrabblegan.data.synthetic import make_synthetic_dataset
 
 B = 8  # one sample per virtual device on the (4, 2) grid
 
@@ -41,7 +41,7 @@ def data_paths(tmp_path_factory):
 def sharded_run(data_paths, tmp_path_factory):
     """One epoch x 2 steps of Trainer.train under fsdp+tp; returns
     (workdir, final state)."""
-    from scrabblegan_tpu.train.loop import Trainer
+    from scrabblegan.train.loop import Trainer
 
     read_dir, words_file, style_dir = data_paths
     workdir = str(tmp_path_factory.mktemp("mdev_run"))
@@ -72,7 +72,7 @@ class TestTrainerFsdpTp:
     def test_restore_sharded_same_layout(self, sharded_run, data_paths):
         """Fresh Trainer, same fsdp+tp layout: restore must come back sharded
         with identical values."""
-        from scrabblegan_tpu.train.loop import Trainer
+        from scrabblegan.train.loop import Trainer
 
         workdir, state = sharded_run
         read_dir, words_file, style_dir = data_paths
@@ -95,7 +95,7 @@ class TestTrainerFsdpTp:
         into a plain replicated-DP Trainer (values equal, layout replicated)."""
         import shutil
 
-        from scrabblegan_tpu.train.loop import Trainer
+        from scrabblegan.train.loop import Trainer
 
         workdir, state = sharded_run
         # copy the checkpoint dir so the DP Trainer's config.json rewrite
@@ -123,7 +123,7 @@ class TestTrainerFsdpTp:
         Trainer must resume from the sharded checkpoint and actually STEP.
         The restored step counter (2) places the run at start_epoch 2 of 3
         at batches_per_epoch=1, so exactly one more batch runs."""
-        from scrabblegan_tpu.train.loop import Trainer
+        from scrabblegan.train.loop import Trainer
 
         workdir, _ = sharded_run
         read_dir, words_file, style_dir = data_paths

@@ -13,9 +13,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scrabblegan_tpu.config import Config, IOConfig, ParallelConfig, SharedSpecs
-from scrabblegan_tpu.data.synthetic import make_synthetic_dataset
-from scrabblegan_tpu.train.step import METRIC_NAMES, normalize_batch_images
+from scrabblegan.config import Config, IOConfig, ParallelConfig, SharedSpecs
+from scrabblegan.data.synthetic import make_synthetic_dataset
+from scrabblegan.train.step import METRIC_NAMES, normalize_batch_images
 
 
 @pytest.fixture(scope="module")
@@ -25,7 +25,7 @@ def data(tmp_path_factory):
 
 
 def _trainer(transfer_dtype, tmp_path_factory, data, **io_kw):
-    from scrabblegan_tpu.train.loop import Trainer
+    from scrabblegan.train.loop import Trainer
 
     cfg = Config(
         shared=dataclasses.replace(SharedSpecs(), batch_size=4, num_gen=2),

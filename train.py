@@ -6,8 +6,8 @@ Usage:
 
 - converts the raw dataset to GAN-Reading format on first run (main.py:61-63),
 - builds data loaders, the four networks, optimizers, and the jitted step,
-- trains with per-epoch sample grids, Orbax checkpoints (with resume), and
-  generator-only exports, then writes the training GIF.
+- trains with per-epoch sample grids, checkpoints (with resume), and
+  generator-only exports, then writes the training animation.
 `--synthetic` fabricates a tiny on-disk dataset first — the zero-download way to
 exercise the full path.
 """
@@ -56,10 +56,7 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    from scrabblegan_tpu.utils.platform import apply_env_platform
-
-    apply_env_platform()
-    from scrabblegan_tpu.config import load_config
+    from scrabblegan.config import load_config
     overrides = dict(kv.split("=", 1) for kv in args.set)
     config_path = args.config
     if config_path is None:
@@ -71,16 +68,16 @@ def main(argv=None):
         config_path = None
     cfg = load_config(config_path, overrides)
 
-    from scrabblegan_tpu.utils.cache import enable_compilation_cache
+    from scrabblegan.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
 
-    from scrabblegan_tpu.train.loop import Trainer
+    from scrabblegan.train.loop import Trainer
 
     trainer = Trainer(cfg, workdir=args.workdir)
 
     if args.synthetic:
-        from scrabblegan_tpu.data.synthetic import make_synthetic_dataset
+        from scrabblegan.data.synthetic import make_synthetic_dataset
 
         root = os.path.join(args.workdir or cfg.io.base_path, "synthetic_data")
         read_dir, words_file, style_dir = make_synthetic_dataset(root)
@@ -89,7 +86,7 @@ def main(argv=None):
     else:
         if not os.path.exists(cfg.io.read_dir):
             print("converting dataset to GAN-Reading format...")
-            from scrabblegan_tpu.data.iam import DATASET_HANDLERS
+            from scrabblegan.data.iam import DATASET_HANDLERS
 
             DATASET_HANDLERS[cfg.io.dataset](
                 cfg.io.raw_dir, cfg.io.read_dir, cfg.io.input_dim,
